@@ -1,11 +1,11 @@
-"""audio_analyzer_rs_tpu — a TPU-native rebuild of LiamWhelan1/audio-analyzer-rs.
+"""audio_analyzer_rs_tpu — a JAX rebuild of LiamWhelan1/audio-analyzer-rs.
 
 A brand-new JAX/XLA/Pallas audio-analysis framework with the capabilities of the
 Rust realtime music-practice engine (reference: /root/reference, crate
 `audio_engine`).  The reference's per-sample Rust loops become batched tensor
 programs over `[frames, ...]` with `jax.lax.scan` carrying the sequential state
 (noise floors, trackers, AGC histories); the hot windowing+FFT inner loop has
-three device backends (`jnp.fft` default, GEMM-native MXU rDFT, fused Pallas);
+two device backends (`jnp.fft` default, a banded GEMM rDFT for pitch);
 multi-chip scale-out is data-parallel sharding of the frame/batch axis over a
 `jax.sharding.Mesh`.
 

@@ -87,7 +87,7 @@ def analyze_buffer(audio: np.ndarray, sample_rate: float,
                    global_floor_db: float = -96.0,
                    as_arrays: bool = False):
     """Analyze a mono buffer (float32, or int16 scaled by 1/32768 like
-    utils.wav) with the full TPU pipeline.
+    utils.wav) with the full device pipeline.
 
     Returns AnalysisResult (a list of per-frame structs) by default, or the
     columnar AnalysisArrays when `as_arrays=True`.
@@ -177,7 +177,7 @@ def analyze_buffer_segmented(audio: np.ndarray, sample_rate: float,
                              ) -> AnalysisArrays:
     """Columnar bulk analysis via the segment-parallel pipelines.
 
-    The TPU bulk path for long recordings: stable pitches and onsets come
+    The device bulk path for long recordings: stable pitches and onsets come
     from `models.segmented` (S parallel device-resident scan streams, >99%
     frame agreement with the sequential analyzers — the only stages that
     carry sequential state), while the feature pack, spectrogram, and YIN

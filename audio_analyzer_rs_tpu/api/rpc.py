@@ -97,7 +97,7 @@ class RpcServer:
             # sr/buffer_size, and a rejected engine must not linger in
             # self.sessions outside the pool (the pooled advance/
             # run_realtime paths drive members only — a zombie session
-            # would silently never advance; ADVICE r4).
+            # would silently never advance).
             if self.pool is not None:
                 self.pool.add(eng)
             sid = self._next_session

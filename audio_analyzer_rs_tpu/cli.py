@@ -103,7 +103,7 @@ def cmd_analyze(path: str, out_path: str | None = None,
     """Bulk offline analysis → JSONL (one line per frame + one onset list).
 
     --segments N (or `auto`) uses the segment-parallel pipelines for the
-    stable pitches and onsets (the TPU bulk path; ~>99% frame agreement
+    stable pitches and onsets (the device bulk path; ~>99% frame agreement
     with sequential; `auto` scales the count to the recording length).
     """
     from . import analysis

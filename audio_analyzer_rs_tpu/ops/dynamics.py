@@ -5,7 +5,7 @@ p10 of a 256-slot quiet-frame history (noise floor), kurtosis broadband
 detector, 5000-slot play history → p50 session median + p95 AGC target,
 smoothed gain with peak-headroom clamp 0.97, ppp…fff classification.
 
-TPU structure: one `lax.scan` over slots.  The reference sorts the 5000-entry
+Device structure: one `lax.scan` over slots.  The reference sorts the 5000-entry
 play history every slot; that is O(slots · n log n) and would dominate the
 device program, so two modes are provided:
 

@@ -1,21 +1,16 @@
-"""Real FFT magnitudes, TPU-first.
+"""Real FFT magnitudes.
 
 Replaces the reference's realfft/rustfft wrapper (ref src/dsp/fft.rs:1-102).
 Two device backends:
 
-* ``fft``  — `jnp.fft.rfft` (XLA's native FFT lowering).  The general
-  default (DEFAULT_BACKEND): fastest full-spectrum magnitudes and ~50x
-  faster to compile than the full-width GEMM (3.4s vs 176s for the 2048-pt
-  batched program); relative MSE vs a float64 oracle ~2e-14.
-* ``dft``  — GEMM-native rDFT: `frames[N, W] @ trig[W, 2H]` on the MXU, then
-  a fused square/add/sqrt.  At W=2048 full width this is ~75x the FLOPs of a
-  split-radix FFT and loses to ``fft`` (TPU v5e, tools/stft_variants.py:
-  3.63 vs 3.38 ms at the bench geometry) — but the `band` parameter makes it
-  the *pitch-pipeline* winner: truncated to the ~465-bin candidate band it
-  does ~2.2x less work than full width and beats the (monolithic,
-  untruncatable) FFT 2.41 vs 3.38 ms, with *better* fidelity (rel MSE
-  7.3e-15 vs 1.9e-14 — one HIGHEST-precision f32 dot per bin vs the FFT's
-  cascaded rounding).  See ops.stft.PITCH_BACKEND.
+* ``fft``  — `jnp.fft.rfft` (XLA's FFT lowering; cuFFT on the GPU).  The
+  general default (DEFAULT_BACKEND) for full-spectrum magnitudes.
+* ``dft``  — GEMM-native rDFT: `frames[N, W] @ trig[W, 2H]`, then a fused
+  square/add/sqrt, at HIGHEST precision.  At full width it does far more
+  FLOPs than an FFT, but the `band` parameter truncates it to the ~465-bin
+  pitch candidate band, which makes it the pitch pipeline's backend
+  (ops.stft.PITCH_BACKEND; a "_band" suffix names that use).  Which of the
+  two is faster on the H100 is not measured yet.
 
 Both return magnitude spectra `[..., W//2+1]` (or `[..., band]`) matching
 `Complex::norm()`.
@@ -29,11 +24,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Measured on TPU v5e (see module docstring): jnp.fft wins wall-clock and
-# compile time for *full-spectrum* magnitudes at both analysis window sizes.
-# The pitch pipeline overrides this with the banded rDFT
-# (ops.stft.PITCH_BACKEND), which consumes only the candidate band.
+# Full-spectrum default.  The pitch pipeline overrides it with the banded
+# rDFT (ops.stft.PITCH_BACKEND), which consumes only the candidate band.
 DEFAULT_BACKEND = "fft"
+BACKENDS = ("fft", "dft")
+
+
+def _base_backend(backend: str) -> str:
+    """"dft_band" → "dft"; anything but the BACKENDS raises ValueError."""
+    base = backend.removesuffix("_band")
+    if base not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}, "
+                         "optionally with a '_band' suffix")
+    return base
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -65,10 +68,11 @@ def rfft_mag(frames: jax.Array, backend: str = DEFAULT_BACKEND,
     `band` (static): compute only the first `band` bins (B = band; default
     B = W//2+1).  The pitch pipeline consumes only the candidate band
     (`ops.pitch.candidate_band` + 1 bins; everything above the 10 kHz cap is
-    unread — see models/analyzer.py), so a banded rDFT does ~2.2x less MXU
-    work and writes ~2.2x fewer bins.  With backend "fft" the full FFT is
+    unread — see models/analyzer.py), so a banded rDFT does ~2.2x less
+    matmul work and writes ~2.2x fewer bins.  With backend "fft" the full FFT is
     still computed (XLA's FFT is monolithic); only the output write narrows.
     """
+    backend = _base_backend(backend)
     n = frames.shape[-1]
     half = n // 2 + 1
     if band is None or band >= half:
@@ -90,6 +94,7 @@ def rfft_mag(frames: jax.Array, backend: str = DEFAULT_BACKEND,
 @partial(jax.jit, static_argnames=("backend",))
 def rfft_complex(frames: jax.Array, backend: str = DEFAULT_BACKEND):
     """(re, im) of the rDFT — for callers that need phase (e.g. inverse)."""
+    backend = _base_backend(backend)
     n = frames.shape[-1]
     half = n // 2 + 1
     if backend == "fft":

@@ -4,7 +4,7 @@ Vectorized port of `STFT::extract_pitches` (ref src/audio_io/stft.rs:443-620).
 The reference walks a Vec of peak bins with data-dependent loops; here every
 bin is scored in parallel (masked to peaks), the 13-harmonic comb is an
 unrolled loop of [H]-wide vector ops, and the data-dependent candidate list
-becomes a fixed top-K + masked greedy dedup — XLA/TPU-friendly static shapes.
+becomes a fixed top-K + masked greedy dedup — static shapes for XLA.
 
 Constants (ref stft.rs:452-453,536-543,594,606):
   MAX_HARMONICS=14, MAX_NOTES=8, fund gate 5x floor, structure gate
@@ -25,14 +25,12 @@ MAX_HARMONICS = 14
 MAX_NOTES = 8
 TOP_K = 32  # static candidate cap; the reference's Vec is unbounded but
             # >32 peaks above half-max-score does not occur in practice.
-# Offsets per stacked slab in the harmonic comb.  Re-tuned each time the
-# surrounding step changes: pre-truncation, 31 (the widest harmonic's full
-# 2n+3 window in one slab) beat 8 by ~7%; post items 9-13 the tradeoff
-# reversed — 8 measures +3.5% over 31 at the bench geometry (10.20 vs
-# 10.56 ms, /tmp knob sweep 2026-08-19; 16 within noise of 8) AND shrinks
-# the [batch, frames, chunk, kc] transient ~4x (HBM headroom).  The
-# cross-chunk strict-greater select chain keeps first-max semantics at any
-# chunk size (bit-exact; oracle fuzz tests pin it).
+# Offsets per stacked slab in the harmonic comb.  8 keeps the
+# [batch, frames, chunk, kc] transient ~4x smaller than one slab per
+# harmonic window (31); carried over from an earlier build, not re-swept
+# on the H100.  The cross-chunk strict-greater select chain keeps
+# first-max semantics at any chunk size (bit-exact; oracle fuzz tests pin
+# it).
 _COMB_CHUNK = 8
 
 MIN_FREQ = 24.0      # ref stft.rs:173
@@ -163,25 +161,11 @@ def _comb_fminor(pm: jax.Array, frac_c: jax.Array, fund_mag: jax.Array,
     `_comb_xla` (same truncation bounds, same chunked first-max argmax,
     same tail-miss mask) operating on the whole frame batch at once.
 
-    Why: `_comb_xla`'s stride-n slices stride the LANE (minor) axis, so the
-    hardware reads ~n of every n lanes' tiles and discards most — real HBM
-    traffic is ~n-fold the nominal slab size, and the roofline shows the
-    step pinned at the HBM roof.  Transposing once per call to
-    pm_T [pad_bins, N] puts candidates on the major axis: each stride-n
-    slice then reads whole 128-lane rows (one 512 B burst each, fully
-    consumed) — the amplification disappears.  Measured on TPU v5e
-    (tools/comb_variants.py, 16,384 frames, same run): 199.1 ms → 130.4 ms
-    (1.53x), bit-exact.
-
-    Inside the FULL production step, however, the advantage vanishes:
-    nested-vmap step with comb="xla" 13.73 ms vs comb="fminor" 13.81 ms at
-    128x64/dft_band (v5e, same-session A/B) — XLA fuses the strided slab
-    reads into the surrounding step so the standalone amplification never
-    hits HBM there, and a flattened-batch restructure of the step to feed
-    this comb regressed other stages (jnp.fft 3x slower on the flat
-    [8192, W] batch than under the segment vmap).  So `DEFAULT_COMB`
-    remains "xla"; this backend stays as the measured, tested, bit-exact
-    alternate for standalone extraction workloads."""
+    Why: `_comb_xla`'s stride-n slices stride the minor axis, so the
+    hardware may read ~n times the nominal slab.  Transposing once per
+    call to pm_T [pad_bins, N] puts candidates on the major axis, so each
+    stride-n slice reads whole contiguous rows.  `DEFAULT_COMB` remains
+    "xla"; neither is measured on the H100 (ROADMAP 3.2)."""
     n_frames = pm.shape[0]
     kc = pm.shape[1]
     front = MAX_HARMONICS + 2
@@ -317,8 +301,8 @@ def _extract_single(mags: jax.Array, noise_floor: jax.Array,
                                                      max_bin, kc)
 
     # ── harmonic comb scoring, all candidate bins in parallel
-    # (stft.rs:499-545).  TPU-critical restructure: dynamic gathers (mags
-    # at per-bin search windows) are catastrophically slow on TPU.  Since
+    # (stft.rs:499-545).  Gather-free restructure: dynamic gathers (mags
+    # at per-bin search windows) lower poorly on accelerators.  Since
     # the window for harmonic n of bin k is centered at n*k (frac_bin
     # deviates from k by at most ±1, so e = frac*n lies within ±n of n*k),
     # every needed value pm[n*k + c] for c in [-n-1, n+1] is a *static
@@ -334,8 +318,8 @@ def _extract_single(mags: jax.Array, noise_floor: jax.Array,
     # padded spectrum.
     fund_mag = m_c
     if comb_outs is not None:
-        # Batched comb ran outside the per-frame vmap (the fused Pallas
-        # kernel; see extract_pitches).
+        # Batched comb ran outside the per-frame vmap (comb="fminor"; see
+        # extract_pitches).
         score, longest_run, total_harms = comb_outs
     else:
         score, longest_run, total_harms = _comb_xla(pm, frac_c, fund_mag,
@@ -360,9 +344,8 @@ def _extract_single(mags: jax.Array, noise_floor: jax.Array,
     top_vals, top_idx = jax.lax.top_k(jnp.where(cand_mask, scores, -jnp.inf), TOP_K)
     cvalid = top_vals > -jnp.inf
     # Gather-free payload pickup: frac_c[top_idx] as a masked one-hot
-    # reduction.  A [K]-wide `take_along_axis` lane gather measured 2.71 ms
-    # of the 15 ms production step (18%! — tools/step_ablation.py "+gather"
-    # row, v5e 128x64); the broadcast-compare+select fuses into the sum's
+    # reduction instead of a [K]-wide `take_along_axis` gather; the
+    # broadcast-compare+select fuses into the sum's
     # reduction loop (no [K, kc] materialization, no gather lowering) and
     # selects the identical f32 value (one-hot ⇒ the sum has exactly one
     # contributor; +0.0 elsewhere is exact).
@@ -410,19 +393,11 @@ def candidate_band(bin_width: float, half: int,
 
 
 # Comb backend: "xla" (per-frame chunked strided-slice stacks vmapped over
-# frames — the default; fastest inside the fused production step), "fminor"
-# (batched frames-minor layout — 1.53x faster measured STANDALONE but a
-# wash inside the full step, see _comb_fminor), or "pallas" (fused
-# VMEM-resident kernel, ops/pallas_comb.py — TPU only, blocked by Mosaic
-# lowering limits on this stack).  All bit-exact to each other; module
-# default used by extract_pitches.
+# frames — the default) or "fminor" (batched frames-minor layout, see
+# _comb_fminor).  Bit-exact to each other; module default used by
+# extract_pitches.
 DEFAULT_COMB = "xla"
-
-# comb="pallas" (compiled Mosaic kernel) cannot compile on this stack (v5e +
-# jax 0.9 — see ops/pallas_comb.py STATUS); dispatching it raises
-# NotImplementedError so the string option can't bitrot silently.  Probe
-# tools (tools/comb_bench.py) flip this flag to re-test newer toolchains.
-PALLAS_COMB_UNBLOCKED = False
+COMBS = ("xla", "fminor")
 
 
 @partial(jax.jit, static_argnames=("bin_width", "min_freq", "max_freq",
@@ -442,26 +417,14 @@ def extract_pitches(mags: jax.Array, noise_floor: jax.Array,
     fn = partial(_extract_single, bin_width=bin_width, min_bin=min_bin,
                  max_bin=max_bin, min_freq=min_freq, max_freq=max_freq,
                  true_half=half)
-    if comb in ("fminor", "pallas", "pallas_interpret"):
-        if comb == "pallas" and not PALLAS_COMB_UNBLOCKED:
-            raise NotImplementedError(
-                'comb="pallas" (compiled) is blocked on v5e + jax 0.9: '
-                "Mosaic rejects the kernel's stride-n lane slices and "
-                "crashes on dynamic lane gathers / in-kernel reshapes "
-                "(ops/pallas_comb.py docstring, tools/mosaic_probe.py). "
-                'Use comb="pallas_interpret" for the correctness twin, or '
-                "set ops.pitch.PALLAS_COMB_UNBLOCKED = True to re-probe a "
-                "newer jax/Mosaic (tools/comb_bench.py does this).")
+    if comb not in COMBS:
+        raise ValueError(f"comb={comb!r}: expected one of {COMBS}")
+    if comb == "fminor":
         kc = min(half - 1, max(max_bin, TOP_K))
         pm, frac_c, m_c, _, _ = jax.vmap(
             partial(_pre_comb, min_bin=min_bin, max_bin=max_bin, kc=kc)
         )(mags, noise_floor[:, :kc])
-        if comb == "fminor":
-            comb_outs = _comb_fminor(pm, frac_c, m_c, half, max_bin)
-        else:
-            from .pallas_comb import comb_pallas
-            comb_outs = comb_pallas(pm, frac_c, m_c, half,
-                                    interpret=comb == "pallas_interpret")
+        comb_outs = _comb_fminor(pm, frac_c, m_c, half, max_bin)
         return jax.vmap(lambda m, f, co: fn(m, f, comb_outs=co))(
             mags, noise_floor, comb_outs)
     return jax.vmap(fn)(mags, noise_floor)

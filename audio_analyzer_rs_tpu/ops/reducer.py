@@ -5,9 +5,9 @@ RBJ biquads (HPF 40 Hz, LPF 14 kHz, Q=0.707), instantaneous-attack envelope
 follower with 40 ms release and 20 ms hold, gate gain ratio^4 below the
 -60 dB threshold.
 
-TPU-first structure: the biquads are 2nd-order linear recurrences →
-`lax.associative_scan` over 2x2 companion-matrix products (log-depth, runs on
-the VPU in parallel) instead of a 48k-step sequential loop.  The gate's
+Device structure: the biquads are 2nd-order linear recurrences →
+`lax.associative_scan` over 2x2 companion-matrix products (log-depth, in
+parallel) instead of a 48k-step sequential loop.  The gate's
 envelope follower (max with decaying EMA + hold counter) is genuinely
 nonlinear-sequential, but it is *blockwise* parallelizable: we scan over
 slots (1024 samples) with an inner `lax.scan` — this stays the parity path.
@@ -100,15 +100,19 @@ def biquad_apply(state: BiquadState, x: jax.Array, coeffs):
     A = jnp.array([[-a1, -a2], [1.0, 0.0]], jnp.float32)
     As = jnp.broadcast_to(A, (blk, 2, 2))
 
+    # HIGHEST: a default-precision f32 product may run in TF32 on the GPU.
+    hi = jax.lax.Precision.HIGHEST
+
     def combine(left, right):
         A1, c1 = left
         A2, c2 = right
-        return A2 @ A1, jnp.einsum("...ij,...j->...i", A2, c1) + c2
+        return (jnp.matmul(A2, A1, precision=hi),
+                jnp.einsum("...ij,...j->...i", A2, c1, precision=hi) + c2)
 
     def block_step(v0, f_blk):
         cs = jnp.stack([f_blk, jnp.zeros_like(f_blk)], axis=-1)
         As_acc, cs_acc = jax.lax.associative_scan(combine, (As, cs))
-        v = jnp.einsum("nij,j->ni", As_acc, v0) + cs_acc
+        v = jnp.einsum("nij,j->ni", As_acc, v0, precision=hi) + cs_acc
         return v[-1], v[:, 0]
 
     v0 = jnp.stack([state.y1, state.y2])
@@ -224,8 +228,8 @@ class HostReducer:
 
     This is the architectural twin of the reference's reducer thread — light
     sequential conditioning belongs on the host CPU (the reference runs it on
-    a dedicated thread, ref mod.rs:336-511); the TPU takes the batched FFT
-    work.  Superseded by the C++ runtime reducer when built (runtime/)."""
+    a dedicated thread, ref mod.rs:336-511); the accelerator takes the
+    batched FFT work.  Superseded by the C++ runtime reducer when built (runtime/)."""
 
     def __init__(self, sample_rate: float):
         f32 = np.float32

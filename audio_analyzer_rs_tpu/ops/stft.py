@@ -27,17 +27,13 @@ ONSET_WINDOW = 256
 ONSET_HOP = 64
 
 # Default backend for the *pitch* pipeline (models/analyzer.py,
-# models/segmented.py): the candidate-banded GEMM rDFT.  The pitch stages
-# read only spectrum bins [0, kc+1) (~465 of 1025 — the 10 kHz candidate
-# cap), so the banded rDFT computes exactly what is consumed.  Measured on
-# TPU v5e at the bench geometry (tools/stft_variants.py, 128 segs x 64
-# frames): stage 2.41 ms vs 3.38 ms for jnp.fft (29% faster), rel MSE vs a
-# float64 oracle 7.3e-15 vs 1.9e-14 (slightly *more* accurate — HIGHEST-
-# precision f32 dot vs the FFT's cascaded rounding); end-to-end step +10.5%.
-# Stable-pitch agreement with the "fft" backend: 99.988% of frames over a
-# 5-minute mixed scene (3/25,600 flips, all marginal second pitches).
-# Full-spectrum consumers (onset, feature pack, spectrogram) keep
-# fft.DEFAULT_BACKEND.
+# models/segmented.py): the candidate-banded GEMM rDFT at HIGHEST
+# precision.  The pitch stages read only spectrum bins [0, kc+1) (~465 of
+# 1025 — the 10 kHz candidate cap), so the banded rDFT computes exactly
+# what is consumed.  The choice is carried over from an earlier build;
+# against cuFFT on the H100 it is not measured yet (ROADMAP 1.4).  Both
+# pass the 1e-6 spectral gate (chip_smoke.py phase 1).  Full-spectrum
+# consumers (onset, feature pack, spectrogram) keep fft.DEFAULT_BACKEND.
 PITCH_BACKEND = "dft_band"
 
 
@@ -56,19 +52,13 @@ def windowed_mags(frames: jax.Array, window: int = PITCH_WINDOW,
                   band: int | None = None) -> jax.Array:
     """[N, window] pre-framed audio → [N, window//2+1] magnitudes.
 
-    backend: "fft" (jnp.fft — the full-spectrum default), "dft" (MXU
+    backend: "fft" (jnp.fft — the full-spectrum default) or "dft" (a
     matmul via XLA — with `band`, the pitch-pipeline default; see
-    PITCH_BACKEND), or "pallas" (fused VMEM-resident kernel,
-    ops/pallas_stft.py; TPU only — fastest for *standalone* magnitude
-    extraction at window 2048, but slow under segment vmap).
+    PITCH_BACKEND).  Any other value raises ValueError.
 
     `band` (static): compute/return only the first `band` bins (see
     ops.fft.rfft_mag) — output [N, band].
     """
-    if backend == "pallas":
-        from .pallas_stft import windowed_mags_pallas
-        out = windowed_mags_pallas(frames, window)
-        return out if band is None else out[..., :band]
     win = jnp.asarray(hann_window(window))
     return rfft_mag(frames * win[None, :], backend=backend, band=band)
 

@@ -4,7 +4,7 @@ BASELINE config #4 ("Pitch detection (autocorrelation/YIN) on generated
 sweeps and recorded notes").  The reference detects pitch via harmonic-comb
 STFT scoring (ops/pitch.py); YIN is the time-domain alternative the BASELINE
 config list mandates.  All steps are batched tensor ops: the difference
-function comes from an FFT autocorrelation (MXU-friendly, one rfft/irfft per
+function comes from an FFT autocorrelation (one rfft/irfft per
 frame batch), the cumulative-mean normalization is a cumsum, and the
 threshold search is a masked argmax — no data-dependent loops.
 

@@ -5,7 +5,7 @@ The reference is a single-process realtime engine; its concurrency fabric
 has no distributed analog.  Scale-out here is data parallelism over the
 stream/batch axis: each chip analyzes a shard of independent audio streams
 (BASELINE config #5 "batched streaming analysis"), with collectives only for
-fleet-wide aggregate statistics.  Collectives ride ICI via a 1-D mesh.
+fleet-wide aggregate statistics over a 1-D mesh (NCCL on GPUs).
 """
 
 from __future__ import annotations

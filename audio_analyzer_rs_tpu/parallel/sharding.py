@@ -5,9 +5,9 @@ analysis chain (reducer conditioning → AGC → pitch STFT pipeline → onset
 pipeline) vmapped over a batch of independent streams and sharded over the
 mesh's data axis with `shard_map`.  Per-frame features are embarrassingly
 parallel across streams, so the only collectives are `psum`-based fleet
-statistics (global mean noise floor / onset count) — they ride ICI.
+statistics (global mean noise floor / onset count).
 
-This is the TPU-native reframing of SURVEY §2's "Parallelism" row: the
+This is the data-parallel reframing of SURVEY §2's "Parallelism" row: the
 reference's thread pipeline becomes one SPMD program per shard.
 """
 
@@ -185,7 +185,7 @@ def make_batched_full_step(mesh: Mesh, sample_rate: float,
 
     def shard_fn(states, audio):
         states, (sf, sv, fired, vel, level, gf_db) = jax.vmap(single)(states, audio)
-        # Fleet-wide aggregates: mean noise floor + total onsets (psum on ICI).
+        # Fleet-wide aggregates: mean noise floor + total onsets (psum).
         local_b = audio.shape[0]
         total_b = local_b * jax.lax.psum(1, DATA_AXIS)
         global_floor = jax.lax.psum(jnp.sum(gf_db), DATA_AXIS) / total_b

@@ -4,12 +4,15 @@ The reference runs its realtime fabric (SlotPool + SPSC rings + reducer/AGC
 thread) natively in Rust; this binds the C++ equivalent.  Builds the shared
 library on first use (g++ is in the image; no pip deps).  All entry points
 degrade gracefully: `available()` is False when the toolchain or build is
-missing and callers fall back to the pure-Python host path.
+missing and callers fall back to the pure-Python host path.  The libraries
+are built for the CPU that builds them (-march=native), so one built on
+another host is rebuilt before it is loaded (`_built_here`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -32,9 +35,33 @@ class DynamicsOutStruct(ctypes.Structure):
                 ("noise_floor_db", ctypes.c_float)]
 
 
-def _build() -> bool:
+def _host_signature() -> str:
+    """md5 of this CPU's feature-flags line, as runtime/Makefile writes it
+    to host.sig."""
+    line = b""
     try:
-        subprocess.run(["make", "-C", _RUNTIME_DIR], check=True,
+        with open("/proc/cpuinfo", "rb") as f:
+            line = next((raw for raw in f
+                         if raw.startswith((b"flags", b"Features"))), b"")
+    except OSError:
+        pass
+    return hashlib.md5(line).hexdigest()
+
+
+def _built_here(path: str) -> bool:
+    """`path` exists and the runtime was last built on a CPU like this one."""
+    try:
+        with open(os.path.join(_RUNTIME_DIR, "host.sig")) as f:
+            sig = f.read().strip()
+    except OSError:
+        return False
+    return os.path.exists(path) and sig == _host_signature()
+
+
+def _build() -> bool:
+    """Rebuild every library for this host (`make -B`)."""
+    try:
+        subprocess.run(["make", "-B", "-C", _RUNTIME_DIR], check=True,
                        capture_output=True, timeout=120)
         return os.path.exists(_LIB_PATH)
     except (subprocess.SubprocessError, OSError):
@@ -47,7 +74,7 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     if _build_failed:
         return None
-    if not os.path.exists(_LIB_PATH) and not _build():
+    if not _built_here(_LIB_PATH) and not _build():
         _build_failed = True
         return None
     try:
@@ -129,7 +156,7 @@ def _load_decode() -> Optional[ctypes.CDLL]:
         return _decode_lib
     if _decode_failed:
         return None
-    if not os.path.exists(_DECODE_PATH) and not _build():
+    if not _built_here(_DECODE_PATH) and not _build():
         _decode_failed = True
         return None
     if not os.path.exists(_DECODE_PATH):  # built, but no FFmpeg dev libs

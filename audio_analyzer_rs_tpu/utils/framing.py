@@ -1,6 +1,6 @@
 """Hop-strided framing: arbitrary-length audio → fixed-shape [frames, window].
 
-The TPU-native replacement for the reference's per-thread ring buffers
+The batched replacement for the reference's per-thread ring buffers
 (ref src/audio_io/stft.rs:198-201,436-437 and src/analysis/onset.rs:143-146):
 instead of a ring buffer advanced by `hop` per iteration, the whole signal is
 framed into a `[num_frames, window]` tensor (a strided gather XLA fuses into

@@ -5,7 +5,7 @@
 // threads, with a reducer thread doing per-sample conditioning (biquads +
 // noise gate) and AGC (ref src/audio_io/mod.rs:31-79,336-511, dynamics.rs).
 // This library is the C++ equivalent: the sequential per-sample conditioning
-// that would waste a TPU runs here at memory bandwidth, feeding conditioned
+// that would waste an accelerator runs here at memory bandwidth, feeding conditioned
 // slots to the device for the batched FFT/feature work.
 //
 // Exposed C ABI (ctypes-friendly):

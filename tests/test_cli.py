@@ -104,7 +104,7 @@ def test_cli_analyze_jsonl(tmp_path, capsys):
 
 
 def test_debug_view_renders_stream(tmp_path):
-    """debug-view (the live Rerun-analog viewer, VERDICT r2 #8): unit-feed
+    """debug-view (the live Rerun-analog viewer): unit-feed
     the renderer, then drive the CLI command over a real recorded stream
     and over a concurrently-growing file (the tail -f path)."""
     import io

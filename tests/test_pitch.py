@@ -329,3 +329,11 @@ def test_comb_fminor_bit_exact_vs_xla():
     out_f = pitch.extract_pitches(mags, floor, BIN_W, comb="fminor")
     for a, b in zip(out_x, out_f):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("comb", ["pallas", "pallas_interpret"])
+def test_removed_comb_backend_raises(comb):
+    """The removed Pallas comb's option values raise."""
+    mags = np.zeros((2, 1025), np.float32)
+    with pytest.raises(ValueError, match="comb"):
+        pitch.extract_pitches(mags, mags, BIN_W, comb=comb)

@@ -8,7 +8,7 @@ numeric contract (consumer surfaces bit-equal; noise-floor IIR leaves may
 carry ulp-level FMA-contraction drift — the batched module is a different
 XLA program, the precision-only divergence class of
 tests/test_divergence_proof.py).  Ref: the reference can only run ONE
-engine per process (src/audio_io/mod.rs:960-1129) — this is the TPU
+engine per process (src/audio_io/mod.rs:960-1129) — this is the
 rebuild's qualitative win, so the parity here is what makes it honest.
 """
 
@@ -211,7 +211,7 @@ def test_pool_mid_join_keeps_members_pipelined():
     joiner calibrates in its own per-wave hold group (drained with a
     one-wave lag), while the steady members KEEP their aggregation and
     pipelining (r4 forced the whole pool synchronous/per-wave while any
-    member calibrated — VERDICT r4 item 4).  Everyone still matches their
+    member calibrated).  Everyone still matches their
     solo runs exactly.  Ref onset.rs:404-440: calibration acceptance
     rewrites only the calibrating engine's scan state."""
     seconds = 4.0

@@ -118,6 +118,23 @@ def test_stale_library_degrades_gracefully(tmp_path):
     assert "graceful" in proc.stdout
 
 
+@pytest.mark.parametrize("sig,ok", [("this host", True),
+                                    ("another host", False),
+                                    (None, False)])
+def test_library_built_for_another_cpu_is_not_loaded(tmp_path, monkeypatch,
+                                                     sig, ok):
+    """The runtime is built with -march=native: a library whose host.sig
+    names another CPU (or none) counts as missing and is rebuilt before it
+    is loaded."""
+    lib = tmp_path / "libaudio_runtime.so"
+    lib.write_bytes(b"")
+    if sig is not None:
+        text = runtime._host_signature() if sig == "this host" else "0" * 32
+        (tmp_path / "host.sig").write_text(text + "\n")
+    monkeypatch.setattr(runtime, "_RUNTIME_DIR", str(tmp_path))
+    assert runtime._built_here(str(lib)) is ok
+
+
 def test_native_throughput_is_realtime_many_times_over(rng):
     """The host conditioning path must not be the system bottleneck."""
     import time

@@ -252,10 +252,9 @@ def test_floor_warmup_short_audio_falls_back():
 
 
 def test_resolve_transfer_auto_policy():
-    """transfer="auto" follows the measured e2e crossover: pipelined only
-    for a standalone pitch analysis of >= AUTO_PIPELINED_MIN_SECONDS;
-    resident for onsets, shared uploads, and short audio (see
-    docs/PERFORMANCE.md transfer-mode table)."""
+    """transfer="auto" follows the e2e crossover: pipelined only for a
+    standalone pitch analysis of >= AUTO_PIPELINED_MIN_SECONDS; resident
+    for onsets, shared uploads, and short audio."""
     from audio_analyzer_rs_tpu.models.segmented import (
         AUTO_PIPELINED_MIN_SECONDS, _resolve_transfer)
 

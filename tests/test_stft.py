@@ -130,3 +130,11 @@ def test_downmix_and_quantize():
     np.testing.assert_allclose(mono, [0.5, 0.5, 0.0])
     q = wav.quantize_i16(np.array([2.0, -2.0, 0.0], dtype=np.float32))
     assert q[0] == 32767 and q[1] == -32767 and q[2] == 0
+
+
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "dft_bands"])
+def test_unknown_stft_backend_raises(backend):
+    """A removed or misspelt backend raises instead of routing anywhere."""
+    x = np.zeros(4096, np.float32)
+    with pytest.raises(ValueError, match="backend"):
+        stft_mags(x, 2048, 512, backend=backend)

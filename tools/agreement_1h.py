@@ -1,5 +1,5 @@
-"""Reproduce the segment-parallel agreement number quoted in bench.py and
-docs/PERFORMANCE.md.
+"""Measure the segment-parallel analyses' frame agreement with the exact
+sequential analyzers on an hour-long scene.
 
 Generates the canonical mixed scene (generators.mixed_scene: melody notes,
 percussion, noise beds, silence), analyzes it twice — exact sequential
@@ -15,9 +15,8 @@ Agreement definitions (same as tests/test_segmented.py):
 
 Usage:  python tools/agreement_1h.py [--minutes 60] [--cpu] [--seed 0]
 
-Runs on the real TPU by default (~1 min device time for 1 h of audio after
-compile; the upload dominates).  --cpu forces the host backend (use small
---minutes there; the sequential scan is ~100x slower than TPU).
+Runs on the default JAX device.  --cpu forces the host backend (use small
+--minutes there: the sequential scan is slow on a CPU).
 """
 
 import argparse

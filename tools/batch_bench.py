@@ -4,8 +4,8 @@ A single short take (~30 s practice recording) only fans out to ~2 segments
 (auto_segments payload rule), so analyzing takes one-by-one leaves the chip
 mostly idle AND pays per-call dispatch/upload latency per take.
 `segmented_pitch_analysis_batch` packs RECORDINGS x SEGMENTS into one flat
-row axis at the 128-row device sweet spot.  This measures both paths on the
-real chip:
+row axis at the 128-row device geometry.  This measures both paths on the
+default JAX device:
 
   one_by_one : sum of `segmented_pitch_analysis(take)` walls (second pass —
                compiles amortized; each call still uploads its own take)

@@ -3,16 +3,13 @@
 Lowers the segment-parallel step (the bench configuration) and reads XLA's
 own cost analysis (FLOPs + bytes accessed), then combines it with a
 measured steady-state step time to report achieved FLOP/s and HBM
-bandwidth versus the chip's peaks.  Answers "is 266k frames/s good?" from
-first principles instead of ablation.
+bandwidth versus the card's published peaks (PEAKS, keyed by
+`device_kind`; a card missing from the table is an error).  The peaks
+assume the card's full power limit; `nvidia-smi` reports the limit the
+card runs at.
 
-TPU v5e (1 chip) peaks used for the ratio:
-  MXU:  197 TFLOP/s bf16, ~49 TFLOP/s f32  (this pipeline is f32)
-  VPU:  ~3.9 TFLOP/s f32 vector ops (8 lanes x 128 x 4 MACs @ ~0.94 GHz)
-  HBM:  819 GB/s
-
-Usage: python tools/roofline.py [--segments 64] [--chunk-frames 256] [--cpu]
-Prints one JSON line; notes on stderr.
+Usage: python tools/roofline.py [--segments 64] [--chunk-frames 256]
+Needs a GPU.  Prints one JSON line; notes on stderr.
 """
 
 import argparse
@@ -23,28 +20,41 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-V5E_HBM_GBS = 819.0
-V5E_MXU_F32_TFLOPS = 49.0
-V5E_VPU_F32_TFLOPS = 3.9
+# Published dense peaks (NVIDIA H100 data sheet, SXM part, 700 W).  This
+# pipeline is float32: its matmuls run at HIGHEST precision, off the TF32
+# tensor-core rate.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"f32_tflops": 67.0, "tf32_tflops": 495.0,
+                              "hbm_gbs": 3350.0,
+                              "source": "NVIDIA H100 data sheet (SXM)"},
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise SystemExit(f"no published peaks for {device_kind!r}; add them "
+                         "to tools/roofline.py PEAKS") from None
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--segments", type=int, default=64)
     ap.add_argument("--chunk-frames", type=int, default=256)
-    ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
 
     import jax
     import jax.numpy as jnp
-    import numpy as np
 
     from audio_analyzer_rs_tpu.models import generators as gen
     from audio_analyzer_rs_tpu.models.segmented import _vmapped_step
     from audio_analyzer_rs_tpu.ops import noisefloor, tracker
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"roofline needs a GPU; JAX found {dev.platform!r}")
+    peaks = peaks_for(dev.device_kind)
 
     sr = 44100.0
     window, hop = 2048, 512
@@ -75,8 +85,8 @@ def main():
     bytes_acc = float(cost.get("bytes accessed", float("nan")))
 
     # Measured steady-state step time.
-    outs = _vmapped_step(nf, tr, audio, gf, on, sr, window, hop)
-    np.asarray(outs[2].stable_valid).sum()
+    jax.block_until_ready(_vmapped_step(nf, tr, audio, gf, on, sr, window,
+                                        hop))
     iters = 12
     t0 = time.perf_counter()
     state = (nf, tr)
@@ -84,7 +94,7 @@ def main():
         n2, t2, out = _vmapped_step(state[0], state[1], audio, gf, on,
                                     sr, window, hop)
         state = (n2, t2)
-    np.asarray(out.stable_valid).sum()
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / iters
     fps = frames_per_step / dt
 
@@ -98,22 +108,20 @@ def main():
           f"({flops_frame/1e6:.2f} MFLOP/frame), "
           f"{bytes_acc/1e9:.2f} GB/step ({bytes_frame/1e6:.2f} MB/frame)",
           file=sys.stderr)
-    print(f"achieved: {achieved_tflops:.3f} TFLOP/s "
-          f"({100*achieved_tflops/V5E_VPU_F32_TFLOPS:.1f}% of VPU f32 peak, "
-          f"{100*achieved_tflops/V5E_MXU_F32_TFLOPS:.2f}% of MXU f32 peak), "
-          f"{achieved_gbs:.1f} GB/s "
-          f"({100*achieved_gbs/V5E_HBM_GBS:.1f}% of HBM peak)",
-          file=sys.stderr)
+    pct_f32 = 100 * achieved_tflops / peaks["f32_tflops"]
+    pct_hbm = 100 * achieved_gbs / peaks["hbm_gbs"]
+    print(f"achieved: {achieved_tflops:.3f} TFLOP/s ({pct_f32:.2f}% of the "
+          f"f32 peak), {achieved_gbs:.1f} GB/s ({pct_hbm:.1f}% of the HBM "
+          f"peak; {peaks['source']})", file=sys.stderr)
     print(json.dumps({
-        "segments": segs, "chunk_frames": cf,
+        "device": dev.device_kind, "segments": segs, "chunk_frames": cf,
         "frames_per_sec": round(fps, 1),
         "mflop_per_frame": round(flops_frame / 1e6, 3),
         "mbytes_per_frame": round(bytes_frame / 1e6, 3),
         "achieved_tflops": round(achieved_tflops, 4),
         "achieved_gb_per_s": round(achieved_gbs, 2),
-        "pct_hbm_peak": round(100 * achieved_gbs / V5E_HBM_GBS, 2),
-        "pct_vpu_f32_peak": round(100 * achieved_tflops
-                                  / V5E_VPU_F32_TFLOPS, 2),
+        "pct_hbm_peak": round(pct_hbm, 2),
+        "pct_f32_peak": round(pct_f32, 2),
     }))
 
 

@@ -1,9 +1,7 @@
-"""Segment-count / chunk-size sweep of the raw pitch step on the real TPU.
+"""Segment-count / chunk-size sweep of the raw pitch step on the GPU.
 
-Re-measures the scaling map in `models/segmented.auto_segments` (and
-docs/PERFORMANCE.md) — worth re-running whenever the step's HBM footprint
-changes (e.g. the round-2 comb truncation shrank the slab that previously
-OOMed 64x512 pre-banding).
+Re-measures the scaling map behind `models/segmented.auto_segments` —
+worth re-running whenever the step's device-memory footprint changes.
 
 Usage: python tools/segment_sweep.py [--configs 64x256,64x512,...]
 Prints one JSON line {config: frames_per_s}; notes on stderr.

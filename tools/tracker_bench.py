@@ -1,187 +1,153 @@
-"""Isolate the tracker scan (17% of the flagship step) and measure variants.
+"""Time the Pallas tracker kernel against the XLA scan, alone and end to end.
 
-The stage ablation (tools/step_ablation.py) shows the tracker scan costs
-~7.9 ms marginal per 16,384-frame step.  This times the tracker alone at the
-bench geometry and splits scan vs post-scan selection, then measures
-reformulations (exactness checked against ops/tracker.tracker_scan):
+Alone: `tracker_scan_batched` at the segmented step's geometry (128
+segments x 64 frames by default) on realistic raw pitches, for the XLA scan
+(`impl="xla"`) and the kernel at each block size in `--block-streams`.
+Each variant is checked against the XLA scan first: integer and boolean
+outputs exactly, frequencies in ulps.
 
-  current      ops/tracker.tracker_scan as shipped
-  scan_only    the lax.scan without the stable-by-seq top-8 selection
-  topk         selection via lax.top_k on negated keys instead of argsort
-  unrollN      scan unroll sweep (the shipped value is tracker.SCAN_UNROLL)
+End to end: `segmented_pitch_analysis` of an hour of int16 audio
+(`generators.mixed_scene`) with the tracker forced to each implementation,
+timed in the order xla, kernel, kernel, xla after a warm-up run of each.
 
-Usage: python tools/tracker_bench.py [--segments 128] [--chunk-frames 128]
-       [--iters 20] [--cpu] [--unrolls 8,16,32,64,128]
-Prints one JSON line; per-row notes on stderr.
+Usage: python tools/tracker_bench.py [--segments 128] [--chunk-frames 64]
+       [--iters 50] [--block-streams 1,2,4,8,16,32] [--e2e-seconds 3600]
+Needs a GPU.  Prints one JSON line last; per-row notes on stderr.
 """
 
 import argparse
-import functools
 import json
 import os
+import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def ulp_diff(a, b):
+    """Largest distance in units in the last place between two f32 arrays."""
+    import numpy as np
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--segments", type=int, default=128)
-    ap.add_argument("--chunk-frames", type=int, default=128)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--unrolls", type=str, default="8,16,32,64,128")
+    ap.add_argument("--chunk-frames", type=int, default=64)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--block-streams", default="1,2,4,8,16,32")
+    ap.add_argument("--e2e-seconds", type=float, default=3600.0)
     args = ap.parse_args()
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
 
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
     import jax
     import jax.numpy as jnp
     import numpy as np
 
+    from audio_analyzer_rs_tpu.compile_cache import configure_compile_cache
+    configure_compile_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"needs a GPU, found {dev.platform}")
+    from audio_analyzer_rs_tpu.models import generators as gen
+    from audio_analyzer_rs_tpu.models import segmented
     from audio_analyzer_rs_tpu.ops import tracker
+    from audio_analyzer_rs_tpu.ops.pallas_tracker import tracker_scan_pallas
     from audio_analyzer_rs_tpu.ops.pitch import MAX_NOTES
-    from audio_analyzer_rs_tpu.ops.tracker import MAX_TRACKS, _step
+
+    results = {"device": dev.device_kind, "card": card.strip(),
+               "segments": args.segments, "chunk_frames": args.chunk_frames}
+    log(f"device {dev.device_kind}; card {card.strip()}")
 
     segs, cf = args.segments, args.chunk_frames
-    frames = segs * cf
     rng = np.random.default_rng(7)
-
-    # Realistic inputs: ~2.5 valid pitches/frame with frame-to-frame pitch
-    # continuity (so tracks actually form and the matching paths are hot),
-    # ~5% onset frames.
+    # ~2.5 valid pitches per frame with frame-to-frame continuity, so tracks
+    # form and the match paths are hot; ~5% onset frames.
     n_valid = rng.integers(0, 5, size=(segs, cf))
-    valid = (np.arange(MAX_NOTES)[None, None, :] < n_valid[..., None])
+    valid = np.arange(MAX_NOTES)[None, None, :] < n_valid[..., None]
     base = rng.uniform(80.0, 900.0, size=(segs, 1, MAX_NOTES))
-    drift = np.cumsum(rng.normal(0, 0.002, size=(segs, cf, MAX_NOTES)), axis=1)
-    freqs = (base * np.exp(drift)).astype(np.float32)
-    scores = rng.uniform(0.1, 4.0, size=(segs, cf, MAX_NOTES)).astype(np.float32)
-    onsets = rng.random((segs, cf)) < 0.05
+    drift = np.cumsum(rng.normal(0, 0.002, (segs, cf, MAX_NOTES)), axis=1)
+    raws = (jnp.asarray((base * np.exp(drift)).astype(np.float32)),
+            jnp.asarray(rng.uniform(0.1, 4.0, (segs, cf, MAX_NOTES))
+                        .astype(np.float32)),
+            jnp.asarray(valid), jnp.asarray(rng.random((segs, cf)) < 0.05))
+    st0 = jax.tree.map(lambda a: jnp.broadcast_to(a, (segs,) + a.shape),
+                       tracker.init_state())
 
-    freqs = jnp.asarray(freqs)
-    scores = jnp.asarray(scores)
-    valid = jnp.asarray(valid)
-    onsets = jnp.asarray(onsets)
-    st0 = jax.tree.map(
-        lambda a: jnp.broadcast_to(a, (segs,) + a.shape), tracker.init_state())
-
-    def time_fn(f, *a):
-        out = f(*a)
-        jax.block_until_ready(out)
+    def time_fn(f):
+        out = jax.block_until_ready(f(st0, *raws))
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            out = f(*a)
+            out = f(st0, *raws)
         jax.block_until_ready(out)
-        dt = (time.perf_counter() - t0) / args.iters
-        return dt, out
+        return (time.perf_counter() - t0) / args.iters, out
 
-    results = {"segments": segs, "chunk_frames": cf}
+    xla = jax.jit(lambda *a: tracker.tracker_scan_batched(*a, impl="xla"))
+    dt_x, ref = time_fn(xla)
+    ref = jax.tree.map(np.asarray, ref)
+    results["alone_xla_ms"] = dt_x * 1e3
+    log(f"alone xla          {dt_x * 1e3:9.4f} ms")
+    best = None
+    for bs in [int(v) for v in args.block_streams.split(",") if v]:
+        fn = jax.jit(lambda *a, bs=bs: tracker_scan_pallas(
+            *a, block_streams=bs))
+        dt, out = time_fn(fn)
+        out = jax.tree.map(np.asarray, out)
+        st, (f, s, v) = out
+        exact = (np.array_equal(v, ref[1][2]) and np.array_equal(s, ref[1][1])
+                 and all(np.array_equal(getattr(st, k), getattr(ref[0], k))
+                         for k in ("score", "life", "valid", "seq",
+                                   "next_seq")))
+        ulps = max(ulp_diff(f, ref[1][0]), ulp_diff(st.freq, ref[0].freq))
+        results[f"alone_pallas_bs{bs}_ms"] = dt * 1e3
+        results[f"alone_pallas_bs{bs}_exact"] = bool(exact)
+        results[f"alone_pallas_bs{bs}_freq_ulps"] = ulps
+        log(f"alone pallas bs={bs:<3d} {dt * 1e3:9.4f} ms  exact={exact} "
+            f"freq_ulps={ulps}")
+        if exact and ulps <= 1 and (best is None or dt < best[1]):
+            best = (bs, dt)
+    results["alone_best_block_streams"] = best and best[0]
 
-    # ── current ──────────────────────────────────────────────────────────
-    cur = jax.jit(jax.vmap(tracker.tracker_scan))
-    dt, ref_out = time_fn(cur, st0, freqs, scores, valid, onsets)
-    results["current_ms"] = round(dt * 1e3, 3)
-    print(f"current    {dt*1e3:8.3f} ms   {frames/dt:12,.0f} frames/s",
-          file=sys.stderr)
-    ref_leaves = jax.tree.map(np.asarray, ref_out)
+    if args.e2e_seconds > 0:
+        audio = gen.mixed_scene(args.e2e_seconds, 44100.0, seed=0)
+        audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+        orig = tracker.tracker_scan_batched
 
-    # ── scan only (no selection) ─────────────────────────────────────────
-    def scan_only(state, rf, rs, rv, on):
-        def body(s, inp):
-            return _step(s, *inp)
-        return jax.lax.scan(body, state, (rf, rs, rv, on),
-                            unroll=tracker.SCAN_UNROLL)
+        def run(impl):
+            tracker.tracker_scan_batched = (
+                lambda *a, **k: orig(*a, impl=impl, **k))
+            segmented._vmapped_step_resident.clear_cache()
+            segmented._vmapped_step.clear_cache()
+            try:
+                segmented.segmented_pitch_analysis(audio, 44100.0)  # warm
+                t0 = time.perf_counter()
+                out = segmented.segmented_pitch_analysis(audio, 44100.0)
+                return time.perf_counter() - t0, out
+            finally:
+                tracker.tracker_scan_batched = orig
 
-    so = jax.jit(jax.vmap(scan_only))
-    dt, _ = time_fn(so, st0, freqs, scores, valid, onsets)
-    results["scan_only_ms"] = round(dt * 1e3, 3)
-    print(f"scan_only  {dt*1e3:8.3f} ms   (selection = current - this)",
-          file=sys.stderr)
-
-    # ── topk selection variant ───────────────────────────────────────────
-    def with_topk(state, rf, rs, rv, on):
-        def body(s, inp):
-            return _step(s, *inp)
-        state, (freq, score, stable, seq) = jax.lax.scan(
-            body, state, (rf, rs, rv, on), unroll=tracker.SCAN_UNROLL)
-        int_max = jnp.iinfo(jnp.int32).max
-        keys = jnp.where(stable, seq, int_max)
-        _, order = jax.lax.top_k(-keys, MAX_NOTES)
-        out_freq = jnp.take_along_axis(freq, order, axis=-1)
-        out_score = jnp.take_along_axis(score, order, axis=-1)
-        out_valid = jnp.take_along_axis(stable, order, axis=-1)
-        return state, (out_freq, out_score, out_valid)
-
-    tk = jax.jit(jax.vmap(with_topk))
-    dt, out = time_fn(tk, st0, freqs, scores, valid, onsets)
-    ok = all(np.array_equal(a, b) for a, b in zip(
-        jax.tree.leaves(ref_leaves), jax.tree.leaves(jax.tree.map(np.asarray, out))))
-    results["topk_ms"] = round(dt * 1e3, 3)
-    results["topk_exact"] = bool(ok)
-    print(f"topk       {dt*1e3:8.3f} ms   exact={ok}", file=sys.stderr)
-
-    # ── rank-counting selection (sort-free) ──────────────────────────────
-    # rank[i] = #{j : (key_j, j) < (key_i, i)} via a [T, T] comparison count;
-    # stable tracks all have seq < int_max so their ranks are the argsort
-    # positions; emit by one-hot scatter instead of gather.  No sort lowering
-    # at all (XLA sorts are bitonic networks with heavy per-stage overhead).
-    def with_rank(state, rf, rs, rv, on):
-        def body(s, inp):
-            return _step(s, *inp)
-        state, (freq, score, stable, seq) = jax.lax.scan(
-            body, state, (rf, rs, rv, on), unroll=tracker.SCAN_UNROLL)
-        int_max = jnp.iinfo(jnp.int32).max
-        keys = jnp.where(stable, seq, int_max)              # [N, T]
-        iota = jnp.arange(keys.shape[-1], dtype=jnp.int32)
-        kj = keys[..., None, :]
-        ki = keys[..., :, None]
-        less = (kj < ki) | ((kj == ki) & (iota[None, :] < iota[:, None]))
-        rank = jnp.sum(less, axis=-1).astype(jnp.int32)     # [N, T]
-        sel = stable & (rank < MAX_NOTES)
-        onehot = jnp.where(sel, rank, MAX_NOTES)[..., None] == jnp.arange(
-            MAX_NOTES, dtype=jnp.int32)                     # [N, T, 8]
-        ohf = onehot.astype(jnp.float32)
-        out_freq = jnp.einsum("nt,nts->ns", freq, ohf)
-        out_score = jnp.einsum("nt,nts->ns", score, ohf)
-        out_valid = jnp.any(onehot, axis=-2)
-        return state, (out_freq, out_score, out_valid)
-
-    rk = jax.jit(jax.vmap(with_rank))
-    dt, out = time_fn(rk, st0, freqs, scores, valid, onsets)
-    ok = all(np.array_equal(a, b) for a, b in zip(
-        jax.tree.leaves(ref_leaves), jax.tree.leaves(jax.tree.map(np.asarray, out))))
-    results["rank_ms"] = round(dt * 1e3, 3)
-    results["rank_exact"] = bool(ok)
-    print(f"rank       {dt*1e3:8.3f} ms   exact={ok}", file=sys.stderr)
-
-    # ── re-measure current (first-row timing can be polluted) ────────────
-    dt, _ = time_fn(cur, st0, freqs, scores, valid, onsets)
-    results["current2_ms"] = round(dt * 1e3, 3)
-    print(f"current2   {dt*1e3:8.3f} ms", file=sys.stderr)
-
-    # ── unroll sweep ─────────────────────────────────────────────────────
-    for u in [int(x) for x in args.unrolls.split(",") if x]:
-        def scan_u(state, rf, rs, rv, on, *, u=u):
-            def body(s, inp):
-                return _step(s, *inp)
-            state, (freq, score, stable, seq) = jax.lax.scan(
-                body, state, (rf, rs, rv, on), unroll=u)
-            int_max = jnp.iinfo(jnp.int32).max
-            order = jnp.argsort(
-                jnp.where(stable, seq, int_max), axis=-1)[:, :MAX_NOTES]
-            return state, (jnp.take_along_axis(freq, order, axis=-1),
-                           jnp.take_along_axis(score, order, axis=-1),
-                           jnp.take_along_axis(stable, order, axis=-1))
-        f = jax.jit(jax.vmap(scan_u))
-        dt, out = time_fn(f, st0, freqs, scores, valid, onsets)
-        ok = all(np.array_equal(a, b) for a, b in zip(
-            jax.tree.leaves(ref_leaves),
-            jax.tree.leaves(jax.tree.map(np.asarray, out))))
-        results[f"unroll{u}_ms"] = round(dt * 1e3, 3)
-        print(f"unroll{u:<4d}{dt*1e3:8.3f} ms   exact={ok}", file=sys.stderr)
-
+        times = {"xla": [], "pallas": []}
+        outs = {}
+        for impl in ("xla", "pallas", "pallas", "xla"):
+            dt, outs[impl] = run(impl)
+            times[impl].append(dt)
+            log(f"e2e {args.e2e_seconds:.0f} s pitch, tracker={impl:6s} "
+                f"{dt:8.4f} s")
+        agree = float(np.mean(np.all(
+            outs["xla"][2] == outs["pallas"][2], axis=1)))
+        results["e2e_seconds_xla"] = times["xla"]
+        results["e2e_seconds_pallas"] = times["pallas"]
+        results["e2e_stable_frame_agreement"] = agree
+        log(f"e2e stable-frame agreement xla vs pallas: {agree:.6%}")
     print(json.dumps(results))
 
 
